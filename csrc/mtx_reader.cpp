@@ -1,6 +1,6 @@
 // Native MatrixMarket coordinate reader.
 //
-// TPU-native counterpart of the reference's host-side fast_matrix_market
+// Counterpart of the reference's host-side fast_matrix_market
 // ingestion (spgemm.cu:43-110): a multithreaded text parser that fills raw
 // COO triplet arrays. Symmetry generalization and complex->real reduction
 // are done by the Python caller on the raw triplets (vectorized numpy),

@@ -4,7 +4,7 @@
 // 43-44: webbase-1M's A^2 text output exceeds 1.5 GiB); numpy savetxt
 // writes these ~100x slower than a buffered formatter.
 //
-// ctypes ABI (see pem_spgemm_tpu/io/mtx.py):
+// ctypes ABI (see pem_spgemm/io/mtx.py):
 //   int64 write_result_files(const char* dir, const char* prefix,
 //                            const int32* rows, const int32* cols,
 //                            const double* vals, int64 nnz, int nthreads)

@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from pem_spgemm_tpu.config import SpGEMMConfig
-from pem_spgemm_tpu.bench.harness import run_benchmark
-from pem_spgemm_tpu.models.synthetic import banded
-from pem_spgemm_tpu.utils.csv_report import CSV_HEADER, matrix_name
-from pem_spgemm_tpu.utils.flops import spgemm_flops
+from pem_spgemm.config import SpGEMMConfig
+from pem_spgemm.bench.harness import run_benchmark
+from pem_spgemm.models.synthetic import banded
+from pem_spgemm.utils.csv_report import CSV_HEADER, matrix_name
+from pem_spgemm.utils.flops import spgemm_flops
 
 
 def test_run_benchmark_and_csv(tmp_path):
@@ -33,7 +33,7 @@ def test_run_benchmark_and_csv(tmp_path):
 
 
 def test_aat_benchmark(tmp_path):
-    from pem_spgemm_tpu.models.synthetic import uniform_random
+    from pem_spgemm.models.synthetic import uniform_random
     coo = uniform_random(300, 80, 2000, seed=2)
     cfg = SpGEMMConfig(warmup=0, repeat=1, numeric_chunk=1 << 10)
     record, result = run_benchmark(coo, "rect", cfg, aat=True, verbose=False)
@@ -44,7 +44,7 @@ def test_aat_benchmark(tmp_path):
 
 
 def test_cli_synthetic(tmp_path, capsys):
-    from pem_spgemm_tpu.bench import cli
+    from pem_spgemm.bench import cli
     record = cli.main(["banded:n=500", "0", "--repeat", "1", "--warmup", "0",
                        "--csv", str(tmp_path / "r.csv")])
     assert record.c_nnz > 0
@@ -53,7 +53,7 @@ def test_cli_synthetic(tmp_path, capsys):
 
 
 def test_cli_save_result(tmp_path):
-    from pem_spgemm_tpu.bench import cli
+    from pem_spgemm.bench import cli
     record = cli.main(["banded:n=200", "1", "--repeat", "1", "--warmup", "0",
                        "--no-csv", "--outdir", str(tmp_path)])
     nnz = int(open(tmp_path / "SPGEMM_RESULT_NNZ.txt").read())

@@ -1,17 +1,16 @@
 """Binned element engine (ops/binned.py): exactness vs scipy."""
 
-import jax
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
 from conftest import random_sparse
-from pem_spgemm_tpu.config import SpGEMMConfig
-from pem_spgemm_tpu.formats.coo import COOMatrix
-from pem_spgemm_tpu.models.synthetic import power_law
-from pem_spgemm_tpu.ops.convert import coo_to_tiled
-from pem_spgemm_tpu.ops.spgemm import SpGEMM
-from pem_spgemm_tpu.ops import binned
+from pem_spgemm.config import SpGEMMConfig
+from pem_spgemm.formats.coo import COOMatrix
+from pem_spgemm.models.synthetic import power_law
+from pem_spgemm.ops.convert import coo_to_tiled
+from pem_spgemm.ops.spgemm import SpGEMM
+from pem_spgemm.ops import binned
 
 
 def _check(coo, b_coo=None, **plan_kw):
@@ -174,63 +173,13 @@ def test_dup_free_split_exact():
     np.testing.assert_allclose(v, want.data[order], rtol=1e-5, atol=1e-6)
 
 
-def test_vmem_sort_matches_xla_path():
-    # the Pallas VMEM sort+dedup kernel (interpret mode) must reproduce
-    # the lax.sort bucket path bit-for-bit in structure and to fp
-    # tolerance in values, across ragged widths (m=3 -> non-pow2 rows)
-    coo = power_law(n=2500, nnz=12000, seed=4, hub_correlation=0.25)
-    a = coo_to_tiled(coo, dtype=np.float32)
-    # pack=False keeps the chunk-granular sort buckets this test drives
-    plan = binned.build_plan_device(a, a, pack=False)
-    checked = 0
-    for b in plan.buckets:
-        if b.single:
-            continue
-        k0, v0, f0, c0 = binned.bucket_multiply(
-            plan.table, b.src, b.avals, b.m, plan.w, b.rounds)
-        k1, v1, f1, c1 = binned.bucket_multiply_vmem(
-            plan.table, b.src, b.avals, b.m, plan.w, b.rounds,
-            interpret=True)
-        np.testing.assert_array_equal(np.asarray(k0), np.asarray(k1))
-        np.testing.assert_array_equal(np.asarray(f0), np.asarray(f1))
-        fm = np.asarray(f0)
-        # group members sum in a different order (scan direction):
-        # fp-tolerant, not bit-equal
-        np.testing.assert_allclose(np.asarray(v1)[fm], np.asarray(v0)[fm],
-                                   rtol=1e-4, atol=1e-6)
-        assert int(c0) == int(c1)
-        checked += 1
-    assert checked >= 2, "no sort-path buckets exercised"
-
-
-def test_binned_multiply_vmem_end_to_end():
-    # XLA:CPU segfaults when a heavy interpret-mode Pallas compile lands
-    # on top of enough accumulated in-process programs (NOTES.md round 3;
-    # the threshold dropped in the round-5 environment to ~this module's
-    # own prefix) — shed the module's compiled state first.
-    jax.clear_caches()
-    coo = power_law(n=2000, nnz=10000, seed=6, hub_correlation=0.3)
-    a = coo_to_tiled(coo, dtype=np.float32)
-    plan = binned.build_plan_device(a, a)
-    stream = binned.binned_multiply(plan, vmem_sort=True, interpret=True)
-    stream.c_nnz = int(stream.c_nnz)
-    s = coo.to_scipy().tocsr()
-    want = (s @ s).tocoo()
-    want.sum_duplicates()
-    assert stream.c_nnz == want.nnz
-    r, c, v = stream.to_coo_arrays()
-    order = np.lexsort((want.col, want.row))
-    np.testing.assert_array_equal(r, want.row[order])
-    np.testing.assert_allclose(v, want.data[order], rtol=1e-5, atol=1e-6)
-
-
 def test_window_singles_path_exact():
     # rows with ONE A element hitting long B rows (m >= WIN_MIN_M chunks)
     # route through the element-window stream (plan.win); exactness vs
     # scipy incl. rows straddling multiple windows and short-tail windows
     import scipy.sparse as sp
-    from pem_spgemm_tpu.formats.coo import COOMatrix
-    from pem_spgemm_tpu.ops.convert import coo_to_tiled
+    from pem_spgemm.formats.coo import COOMatrix
+    from pem_spgemm.ops.convert import coo_to_tiled
 
     rs = np.random.default_rng(21)
     n = 4000

@@ -5,8 +5,8 @@ import pytest
 import scipy.sparse as sp
 
 from conftest import random_sparse
-from pem_spgemm_tpu.formats.coo import COOMatrix
-from pem_spgemm_tpu.ops.convert import coo_to_tiled, transpose_masks
+from pem_spgemm.formats.coo import COOMatrix
+from pem_spgemm.ops.convert import coo_to_tiled, transpose_masks
 
 
 def _tiled(m, **kw):

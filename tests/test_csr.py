@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 
 from conftest import random_sparse
-from pem_spgemm_tpu.formats.coo import COOMatrix
-from pem_spgemm_tpu.ops.csr import csr_spgemm
+from pem_spgemm.formats.coo import COOMatrix
+from pem_spgemm.ops.csr import csr_spgemm
 
 
 @pytest.mark.parametrize("n,density,seed", [
@@ -38,9 +38,9 @@ def test_csr_empty_product():
 
 
 def test_csr_matches_tiled_pipeline():
-    from pem_spgemm_tpu.config import SpGEMMConfig
-    from pem_spgemm_tpu.ops.convert import coo_to_tiled
-    from pem_spgemm_tpu.ops.spgemm import SpGEMM
+    from pem_spgemm.config import SpGEMMConfig
+    from pem_spgemm.ops.convert import coo_to_tiled
+    from pem_spgemm.ops.spgemm import SpGEMM
     m = random_sparse(200, 200, 0.02, 7)
     coo = COOMatrix.from_scipy(m)
     oracle = csr_spgemm(coo, coo).to_scipy().tocsr()

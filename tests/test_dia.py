@@ -10,12 +10,12 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from pem_spgemm_tpu.formats.coo import COOMatrix
-from pem_spgemm_tpu.config import SpGEMMConfig
-from pem_spgemm_tpu.ops.spgemm import SpGEMM
-from pem_spgemm_tpu.ops.dia import (coo_to_dia, detect_dia, diag_offsets,
-                                    make_dia_plan, dia_to_coo)
-from pem_spgemm_tpu.ops.fixed import make_plan
+from pem_spgemm.formats.coo import COOMatrix
+from pem_spgemm.config import SpGEMMConfig
+from pem_spgemm.ops.spgemm import SpGEMM
+from pem_spgemm.ops.dia import (coo_to_dia, detect_dia, diag_offsets,
+                                make_dia_plan, dia_to_coo)
+from pem_spgemm.ops.fixed import make_plan
 
 
 def _banded_coo(n, bands, seed=0, n_cols=None):
@@ -69,7 +69,7 @@ def test_square_tridiagonal():
 
 
 def test_sparse_nonuniform_offsets():
-    # pairbands-like: non-dense offset set (XLA path, never pallas)
+    # pairbands-like: non-dense offset set
     _check_product(_banded_coo(400, (0, 1, 60, 61, -60, -61)))
 
 
@@ -155,7 +155,7 @@ def test_fixed_plan_replay_matches_interactive():
 
 
 def test_harness_runs_dia_engine():
-    from pem_spgemm_tpu.bench.harness import run_benchmark
+    from pem_spgemm.bench.harness import run_benchmark
     coo = _banded_coo(500, (0, 1, 30, 31))
     cfg = SpGEMMConfig(engine="dia", warmup=1, repeat=2)
     record, result = run_benchmark(coo, "dia-banded", cfg, verbose=False)
@@ -171,7 +171,7 @@ def test_harness_runs_dia_engine():
 
 
 def test_harness_auto_detects_dia():
-    from pem_spgemm_tpu.bench.harness import run_benchmark
+    from pem_spgemm.bench.harness import run_benchmark
     coo = _banded_coo(500, (-1, 0, 1))
     cfg = SpGEMMConfig(engine="auto", warmup=0, repeat=1)
     record, result = run_benchmark(coo, "dia-auto", cfg, verbose=False)
@@ -179,7 +179,7 @@ def test_harness_auto_detects_dia():
 
 
 def test_harness_auto_falls_back_for_scattered():
-    from pem_spgemm_tpu.bench.harness import run_benchmark
+    from pem_spgemm.bench.harness import run_benchmark
     rs = np.random.default_rng(6)
     n = 600
     rows = rs.integers(0, n, 1200).astype(np.int32)
@@ -192,34 +192,13 @@ def test_harness_auto_falls_back_for_scattered():
     assert result.engine != "dia"
 
 
-def test_pallas_path_interpret_matches_xla():
-    # The pallas kernel requires a dense B offset range; compare its
-    # interpret-mode output against the XLA path on a wide stencil.
-    import jax
-    from pem_spgemm_tpu.ops import pallas_dia as pd
-    from pem_spgemm_tpu.ops.dia import _dia_multiply_xla, _plan_maps
-    coo = _banded_coo(700, tuple(range(-4, 5)), seed=8)
-    a = coo_to_dia(coo, dtype=np.float32)
-    dc_list, idx_map = _plan_maps(a.offsets, a.offsets)
-    cx, nx = _dia_multiply_xla(a.bands, a.bands, offs_a=a.offsets,
-                               idx_map=idx_map, dc_count=len(dc_list),
-                               n_out=a.shape[0])
-    cp, np_ = pd.dia_multiply_pallas(a.bands, a.bands, offs_a=a.offsets,
-                                     dc_list=dc_list, n_out=a.shape[0],
-                                     interpret=True)
-    np.testing.assert_allclose(np.asarray(cp), np.asarray(cx),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(np_) > 0,
-                                  np.asarray(nx) > 0)
-
-
 def test_sharded_dia_matches_single_device():
     # halo-exchange column sharding (parallel/sharded_dia.py) vs the
     # single-device XLA path and scipy, on the virtual 8-device mesh
     import jax
-    from pem_spgemm_tpu.parallel.sharded import make_mesh
-    from pem_spgemm_tpu.parallel.sharded_dia import sharded_dia_multiply
-    from pem_spgemm_tpu.ops.dia import _dia_multiply_xla, _plan_maps, \
+    from pem_spgemm.parallel.sharded import make_mesh
+    from pem_spgemm.parallel.sharded_dia import sharded_dia_multiply
+    from pem_spgemm.ops.dia import _dia_multiply_xla, _plan_maps, \
         dia_to_coo
     coo = _banded_coo(1000, (-7, -1, 0, 2, 11), seed=13)
     a = coo_to_dia(coo, dtype=np.float32)
@@ -243,47 +222,6 @@ def test_sharded_dia_matches_single_device():
                                rtol=2e-5, atol=1e-5)
 
 
-def test_pallas_applicable_rejects_gapped_sums():
-    # offs_a spaced wider than B's dense range -> the C diagonal set has
-    # gaps; the pallas kernel's dense row mapping would misindex, so the
-    # qualifier must refuse (ops/pallas_dia.pallas_dia_applicable).
-    from pem_spgemm_tpu.ops import pallas_dia as pd
-    from pem_spgemm_tpu.ops.dia import _plan_maps
-
-    class _FakeCfg:
-        use_pallas = True
-
-    offs_a = (0, 10)                 # spacing 10 > len(offs_b) = 5
-    offs_b = (-2, -1, 0, 1, 2)
-    dc_list, _ = _plan_maps(offs_a, offs_b)
-    dc_dense = (max(offs_a) + max(offs_b)) - (min(offs_a) + min(offs_b)) + 1
-    assert len(dc_list) < dc_dense   # gaps actually exist
-    assert not pd.pallas_dia_applicable(offs_a, offs_b, dc_list, 10_000,
-                                        _FakeCfg())
-
-
-def test_pallas_interpret_d2_not_multiple_of_8():
-    # B band count 5 pads the window DMA's sublane extent to 8 (Mosaic
-    # tiling); padded rows are zero and the accumulator slice-off must
-    # keep results exact.
-    from pem_spgemm_tpu.ops import pallas_dia as pd
-    from pem_spgemm_tpu.ops.dia import _dia_multiply_xla, _plan_maps
-    a_coo = _banded_coo(600, (5,), seed=9)
-    b_coo = _banded_coo(600, (-2, -1, 0, 1, 2), seed=10)
-    a = coo_to_dia(a_coo, dtype=np.float32)
-    b = coo_to_dia(b_coo, dtype=np.float32)
-    dc_list, idx_map = _plan_maps(a.offsets, b.offsets)
-    cx, nx = _dia_multiply_xla(a.bands, b.bands, offs_a=a.offsets,
-                               idx_map=idx_map, dc_count=len(dc_list),
-                               n_out=a.shape[0])
-    cp, np_ = pd.dia_multiply_pallas(a.bands, b.bands, offs_a=a.offsets,
-                                     dc_list=dc_list, n_out=a.shape[0],
-                                     interpret=True)
-    np.testing.assert_allclose(np.asarray(cp), np.asarray(cx),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(np_) > 0, np.asarray(nx) > 0)
-
-
 def test_fixed_plan_count_cache_second_run():
     # DiaPlan caches the static structural counts after the first run;
     # the second (values-only) run must return identical values, counts
@@ -299,87 +237,66 @@ def test_fixed_plan_count_cache_second_run():
     assert int(out2[2]) == int(out1[2]) == res.c_nnz
 
 
-def test_pallas_values_only_interpret():
-    from pem_spgemm_tpu.ops import pallas_dia as pd
-    from pem_spgemm_tpu.ops.dia import _plan_maps
-    coo = _banded_coo(500, tuple(range(-4, 5)), seed=18)
-    a = coo_to_dia(coo, dtype=np.float32)
-    dc_list, _ = _plan_maps(a.offsets, a.offsets)
-    c_full, cnt = pd.dia_multiply_pallas(a.bands, a.bands,
-                                         offs_a=a.offsets,
-                                         dc_list=dc_list, n_out=a.shape[0],
-                                         interpret=True)
-    c_vo, none = pd.dia_multiply_pallas(a.bands, a.bands,
-                                        offs_a=a.offsets, dc_list=dc_list,
-                                        n_out=a.shape[0], values_only=True,
-                                        interpret=True)
-    assert none is None
-    np.testing.assert_allclose(np.asarray(c_vo), np.asarray(c_full),
+@pytest.mark.parametrize("offs_a,offs_b,n", [
+    (tuple(range(-8, 8)), tuple(range(-8, 8)), 700),
+    (tuple(range(3, 9)), tuple(range(-5, 2)), 500),     # A above, B mixed
+    (tuple(range(-12, -2)), tuple(range(0, 20)), 300),  # A below diagonal
+])
+def test_dia_kernel_interpret_matches_xla(offs_a, offs_b, n):
+    # ops/dia_kernel in Pallas interpret mode vs the XLA path: values to
+    # float32 rounding, structural counts exactly, values-only replay
+    from pem_spgemm.ops.dia import _dia_multiply_xla, _plan_maps
+    from pem_spgemm.ops.dia_kernel import dia_multiply_kernel
+    a = coo_to_dia(_banded_coo(n, offs_a, seed=8), dtype=np.float32)
+    b = coo_to_dia(_banded_coo(n, offs_b, seed=9), dtype=np.float32)
+    dc_list, idx_map = _plan_maps(a.offsets, b.offsets)
+    cx, nx = _dia_multiply_xla(a.bands, b.bands, offs_a=a.offsets,
+                               idx_map=idx_map, dc_count=len(dc_list),
+                               n_out=n)
+    kw = dict(offs_a=a.offsets, offs_b=b.offsets, n_out=n, rows=8,
+              cols=64, interpret=True)
+    ck, nk = dia_multiply_kernel(a.bands, b.bands, **kw)
+    np.testing.assert_allclose(np.asarray(ck), np.asarray(cx),
                                rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(nk), np.asarray(nx))
+    cv, none = dia_multiply_kernel(a.bands, b.bands, values_only=True, **kw)
+    assert none is None
+    np.testing.assert_array_equal(np.asarray(cv), np.asarray(ck))
 
 
-def test_pallas_pairs_kernel_interpret_matches_xla():
-    # The pairwise kernel (ops/pallas_dia._kernel_pairs) lifts the dense
-    # offset-range precondition: pairbands-class gapped band sets run one
-    # static row FMA per (d1, d2) product into the sparse dc row map.
-    from pem_spgemm_tpu.ops import pallas_dia as pd
-    from pem_spgemm_tpu.ops.dia import _dia_multiply_xla, _plan_maps
-    bands = (0, 1, 60, 61, -60, -61, 120, 121, -120, -121)
-    coo = _banded_coo(900, bands, seed=21)
-    a = coo_to_dia(coo, dtype=np.float32)
-    dc_list, idx_map = _plan_maps(a.offsets, a.offsets)
-    dc_dense = 2 * (max(bands) - min(bands)) + 1
-    assert len(dc_list) < dc_dense          # gapped C offsets for real
-    cx, nx = _dia_multiply_xla(a.bands, a.bands, offs_a=a.offsets,
+@pytest.mark.parametrize("offs_a,offs_b,platform,want", [
+    (tuple(range(-32, 32)), tuple(range(-32, 32)), "gpu", True),
+    (tuple(range(-64, 64)), tuple(range(-64, 64)), "gpu", True),
+    (tuple(range(-64, 64)), tuple(range(-64, 64)), "cpu", False),
+    (tuple(range(-8, 8)), tuple(range(-8, 8)), "gpu", False),   # few pairs
+    ((0, 1, 600, 601, -600, -601, 1200, 1201, -1200, -1201),) * 2
+    + ("gpu", False),                                           # gapped
+    (tuple(range(-64, 64, 2)), tuple(range(-64, 64)), "gpu", False),
+])
+def test_dia_kernel_choice(offs_a, offs_b, platform, want):
+    from pem_spgemm.ops.dia import use_dia_kernel
+    assert use_dia_kernel(offs_a, offs_b, platform) is want
+
+
+def test_dia_plan_takes_xla_path_on_cpu():
+    a = coo_to_dia(_banded_coo(400, tuple(range(-40, 40)), seed=3),
+                   dtype=np.float32)
+    assert not make_dia_plan(a, a).kernel
+
+
+@pytest.mark.gpu
+def test_dia_kernel_on_gpu_matches_xla(gpu):
+    from pem_spgemm.ops.dia import _dia_multiply_xla, _plan_maps
+    from pem_spgemm.ops.dia_kernel import dia_multiply_kernel
+    offs = tuple(range(-64, 64))
+    a = coo_to_dia(_banded_coo(20_000, offs, seed=4), dtype=np.float32)
+    assert make_dia_plan(a, a).kernel
+    dc_list, idx_map = _plan_maps(offs, offs)
+    cx, nx = _dia_multiply_xla(a.bands, a.bands, offs_a=offs,
                                idx_map=idx_map, dc_count=len(dc_list),
                                n_out=a.shape[0])
-    cp, np_ = pd.dia_multiply_pallas(a.bands, a.bands, offs_a=a.offsets,
-                                     offs_b=a.offsets, mode="pairs",
-                                     dc_list=dc_list, n_out=a.shape[0],
-                                     interpret=True)
-    np.testing.assert_allclose(np.asarray(cp), np.asarray(cx),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(np_) > 0, np.asarray(nx) > 0)
-    # values-only replay path (DiaPlan count-cache contract)
-    c_vo, none = pd.dia_multiply_pallas(a.bands, a.bands, offs_a=a.offsets,
-                                        offs_b=a.offsets, mode="pairs",
-                                        dc_list=dc_list, n_out=a.shape[0],
-                                        values_only=True, interpret=True)
-    assert none is None
-    np.testing.assert_allclose(np.asarray(c_vo), np.asarray(cp),
-                               rtol=1e-6, atol=1e-6)
-
-
-def test_pallas_mode_selects_pairs_for_gapped_bands(monkeypatch):
-    from pem_spgemm_tpu.ops import pallas_dia as pd
-    from pem_spgemm_tpu.ops.dia import _plan_maps
-
-    class _FakeCfg:
-        use_pallas = True
-
-    bands = (0, 1, 600, 601, -600, -601, 1200, 1201, -1200, -1201)
-    dc_list, _ = _plan_maps(bands, bands)
-    # CPU platform gate first (the real environment for this test run)
-    assert pd.pallas_dia_mode(bands, bands, dc_list, 500_000,
-                              _FakeCfg()) is None
-    # ... then bypass it so the SELECTION logic itself is exercised
-    # (ADVICE round 3: the 'pairs' branch was never executed by the suite)
-    monkeypatch.setattr(pd, "_platform_ok", lambda: True)
-    assert pd.pallas_dia_mode(bands, bands, dc_list, 500_000,
-                              _FakeCfg()) == "pairs"
-    # control: dense stencil range selects the dense kernel
-    dense_bands = tuple(range(-8, 8))
-    dcd, _ = _plan_maps(dense_bands, dense_bands)
-    assert pd.pallas_dia_mode(dense_bands, dense_bands, dcd, 1_000_000,
-                              _FakeCfg()) == "dense"
-    # control: tiny n_out fails the pairs profitability gate
-    assert pd.pallas_dia_mode(bands, bands, dc_list, 1024,
-                              _FakeCfg()) is None
-    # control: a VMEM-infeasible A-offset span must NOT select 'pairs'
-    # (the window scratch is (d2, L+span); ADVICE round 3, medium) —
-    # same shape class as the qualifying set, offsets blown out 1000x
-    wide = tuple(b * 1000 for b in bands)
-    dcw, _ = _plan_maps(wide, wide)
-    assert not pd._pairs_vmem_ok(wide, wide, len(dcw))
-    assert pd.pallas_dia_mode(wide, wide, dcw, 50_000_000,
-                              _FakeCfg()) is None
+    ck, nk = dia_multiply_kernel(a.bands, a.bands, offs_a=offs, offs_b=offs,
+                                 n_out=a.shape[0])
+    np.testing.assert_allclose(np.asarray(ck), np.asarray(cx),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(nk), np.asarray(nx))

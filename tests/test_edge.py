@@ -5,11 +5,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from pem_spgemm_tpu.config import SpGEMMConfig
-from pem_spgemm_tpu.formats.coo import COOMatrix
-from pem_spgemm_tpu.models.synthetic import banded
-from pem_spgemm_tpu.ops.convert import coo_to_tiled, coo_to_macro
-from pem_spgemm_tpu.ops.spgemm import SpGEMM
+from pem_spgemm.config import SpGEMMConfig
+from pem_spgemm.formats.coo import COOMatrix
+from pem_spgemm.models.synthetic import banded
+from pem_spgemm.ops.convert import coo_to_tiled, coo_to_macro
+from pem_spgemm.ops.spgemm import SpGEMM
 
 
 def _coo(rows, cols, vals, shape):

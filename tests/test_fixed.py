@@ -5,11 +5,11 @@ import numpy as np
 import jax
 
 from conftest import random_sparse
-from pem_spgemm_tpu.config import SpGEMMConfig
-from pem_spgemm_tpu.formats.coo import COOMatrix
-from pem_spgemm_tpu.ops.convert import coo_to_tiled
-from pem_spgemm_tpu.ops.fixed import make_plan
-from pem_spgemm_tpu.ops.spgemm import SpGEMM
+from pem_spgemm.config import SpGEMMConfig
+from pem_spgemm.formats.coo import COOMatrix
+from pem_spgemm.ops.convert import coo_to_tiled
+from pem_spgemm.ops.fixed import make_plan
+from pem_spgemm.ops.spgemm import SpGEMM
 
 
 def test_planned_matches_interactive():
@@ -77,7 +77,7 @@ def test_planned_element_matches_scipy():
     n = int(c_nnz)
     assert want.nnz == n
     # untimed assembly: compact the flagged group stream
-    from pem_spgemm_tpu.ops.element import compact_stream
+    from pem_spgemm.ops.element import compact_stream
     rows, cols, vals = compact_stream(rows, cols, vals, first)
     order = np.lexsort((want.col, want.row))
     np.testing.assert_array_equal(np.asarray(rows)[:n], want.row[order])
@@ -123,7 +123,7 @@ def test_planned_element_wide_keeps_f64():
 
 def test_scanops():
     import jax.numpy as jnp
-    from pem_spgemm_tpu.ops import scanops
+    from pem_spgemm.ops import scanops
     offsets = jnp.array([0, 3, 3, 5, 9], jnp.int32)  # one empty segment
     ids = np.asarray(scanops.segment_ids_from_offsets(offsets, 12))
     assert ids[:9].tolist() == [0, 0, 0, 2, 2, 3, 3, 3, 3]

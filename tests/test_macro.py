@@ -4,13 +4,13 @@ import numpy as np
 import jax.numpy as jnp
 
 from conftest import random_sparse
-from pem_spgemm_tpu.config import SpGEMMConfig
-from pem_spgemm_tpu.formats.coo import COOMatrix
-from pem_spgemm_tpu.models.synthetic import banded
-from pem_spgemm_tpu.ops.convert import coo_to_tiled, coo_to_macro
-from pem_spgemm_tpu.ops.fixed import make_plan, MacroPlan
-from pem_spgemm_tpu.ops.macro import macro_structure, assemble_macro_coo
-from pem_spgemm_tpu.ops.spgemm import SpGEMM
+from pem_spgemm.config import SpGEMMConfig
+from pem_spgemm.formats.coo import COOMatrix
+from pem_spgemm.models.synthetic import banded
+from pem_spgemm.ops.convert import coo_to_tiled, coo_to_macro
+from pem_spgemm.ops.fixed import make_plan, MacroPlan
+from pem_spgemm.ops.macro import macro_structure, assemble_macro_coo
+from pem_spgemm.ops.spgemm import SpGEMM
 
 
 def _check_macro(coo, cfg):

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from pem_spgemm_tpu.models import synthetic
+from pem_spgemm.models import synthetic
 
 
 def _assert_canonical(m):
@@ -45,7 +45,7 @@ def test_bad_family():
 def test_wandering_device_structure():
     # irregular-macro generator: exact nnz, in-range, macro-aligned
     # offsets, and a diagonal census far beyond the DIA cap
-    from pem_spgemm_tpu.ops.dia import detect_dia, diag_offsets
+    from pem_spgemm.ops.dia import detect_dia, diag_offsets
     m = synthetic.wandering_device(n=2048, width=16, block=128, seed=4)
     assert m.nnz == 2048 * 16
     rows = np.asarray(m.rows)
@@ -59,9 +59,9 @@ def test_wandering_device_structure():
 
 
 def test_wandering_macro_engine_exact():
-    from pem_spgemm_tpu.config import SpGEMMConfig
-    from pem_spgemm_tpu.ops.spgemm import SpGEMM
-    from pem_spgemm_tpu.ops.convert import coo_to_macro
+    from pem_spgemm.config import SpGEMMConfig
+    from pem_spgemm.ops.spgemm import SpGEMM
+    from pem_spgemm.ops.convert import coo_to_macro
     m = synthetic.wandering_device(n=1024, width=16, block=128, seed=7)
     a = coo_to_macro(m, dtype=np.float32)
     res = SpGEMM(SpGEMMConfig())(a, a)

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from pem_spgemm_tpu.formats.coo import COOMatrix
-from pem_spgemm_tpu.io.mtx import (read_matrix_market, write_matrix_market,
-                                   save_result_files)
+from pem_spgemm.formats.coo import COOMatrix
+from pem_spgemm.io.mtx import (read_matrix_market, write_matrix_market,
+                               save_result_files)
 
 HEADERS = {
     "real_general": (
@@ -112,8 +112,8 @@ def test_save_result_files(tmp_path):
 
 def test_result_writer_native_matches_python(tmp_path):
     import numpy as np
-    from pem_spgemm_tpu.formats.coo import COOMatrix
-    from pem_spgemm_tpu.io.mtx import save_result_files
+    from pem_spgemm.formats.coo import COOMatrix
+    from pem_spgemm.io.mtx import save_result_files
     rs = np.random.default_rng(3)
     m = COOMatrix(rs.integers(0, 500, 200).astype(np.int32),
                   rs.integers(0, 500, 200).astype(np.int32),

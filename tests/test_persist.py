@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from pem_spgemm_tpu.config import SpGEMMConfig
-from pem_spgemm_tpu.io.persist import (save_tiled, load_tiled,
-                                       save_macro, load_macro)
-from pem_spgemm_tpu.models.synthetic import banded, power_law
-from pem_spgemm_tpu.ops.convert import coo_to_tiled, coo_to_macro
-from pem_spgemm_tpu.ops.spgemm import SpGEMM
+from pem_spgemm.config import SpGEMMConfig
+from pem_spgemm.io.persist import (save_tiled, load_tiled,
+                                   save_macro, load_macro)
+from pem_spgemm.models.synthetic import banded, power_law
+from pem_spgemm.ops.convert import coo_to_tiled, coo_to_macro
+from pem_spgemm.ops.spgemm import SpGEMM
 
 
 def test_tiled_roundtrip_and_multiply(tmp_path):
@@ -52,7 +52,7 @@ def test_magic_mismatch(tmp_path):
 
 
 def test_cli_save_converted(tmp_path):
-    from pem_spgemm_tpu.bench import cli
+    from pem_spgemm.bench import cli
     path = str(tmp_path / "conv.npz")
     cli.main(["banded:n=300", "0", "--repeat", "1", "--warmup", "0",
               "--no-csv", "--save-converted", path, "--engine", "element"])

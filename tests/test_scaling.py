@@ -1,8 +1,8 @@
 """Scaling-efficiency harness on the virtual CPU mesh (schedule check)."""
 
-from pem_spgemm_tpu.models.synthetic import banded, power_law
-from pem_spgemm_tpu.parallel.distributed import (initialize, pod_mesh,
-                                                 scaling_efficiency)
+from pem_spgemm.models.synthetic import banded, power_law
+from pem_spgemm.parallel.distributed import (initialize, pod_mesh,
+                                             scaling_efficiency)
 
 
 def test_initialize_single_process_noop():

@@ -7,11 +7,11 @@ import scipy.sparse as sp
 import jax
 
 from conftest import random_sparse
-from pem_spgemm_tpu.formats.coo import COOMatrix
-from pem_spgemm_tpu.ops.convert import coo_to_tiled
-from pem_spgemm_tpu.parallel.sharded import (plan_sharded_spgemm,
-                                             sharded_numeric,
-                                             assemble_sharded, make_mesh)
+from pem_spgemm.formats.coo import COOMatrix
+from pem_spgemm.ops.convert import coo_to_tiled
+from pem_spgemm.parallel.sharded import (plan_sharded_spgemm,
+                                         sharded_numeric,
+                                         assemble_sharded, make_mesh)
 
 
 def _run_sharded(m, n_devices):
@@ -43,7 +43,7 @@ def test_sharded_matches_scipy(n_devices):
 
 
 def test_sharded_banded():
-    from pem_spgemm_tpu.models.synthetic import banded
+    from pem_spgemm.models.synthetic import banded
     coo = banded(2000, bands=(0, 1, -1, 33, -120))
     m = coo.to_scipy()
     plan, got = _run_sharded(m, 8)

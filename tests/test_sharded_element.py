@@ -4,11 +4,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from pem_spgemm_tpu.formats.coo import COOMatrix
-from pem_spgemm_tpu.models.synthetic import power_law
-from pem_spgemm_tpu.ops.convert import coo_to_tiled
-from pem_spgemm_tpu.parallel.sharded import make_mesh
-from pem_spgemm_tpu.parallel.sharded_element import (
+from pem_spgemm.formats.coo import COOMatrix
+from pem_spgemm.models.synthetic import power_law
+from pem_spgemm.ops.convert import coo_to_tiled
+from pem_spgemm.parallel.sharded import make_mesh
+from pem_spgemm.parallel.sharded_element import (
     plan_sharded_element, sharded_element_multiply,
     assemble_sharded_element)
 

@@ -5,10 +5,10 @@ import pytest
 
 import jax
 
-from pem_spgemm_tpu.models.synthetic import banded
-from pem_spgemm_tpu.ops.convert import coo_to_macro
-from pem_spgemm_tpu.parallel.sharded import make_mesh
-from pem_spgemm_tpu.parallel.sharded_macro import (
+from pem_spgemm.models.synthetic import banded
+from pem_spgemm.ops.convert import coo_to_macro
+from pem_spgemm.parallel.sharded import make_mesh
+from pem_spgemm.parallel.sharded_macro import (
     plan_sharded_macro, sharded_macro_numeric, assemble_sharded_macro)
 
 

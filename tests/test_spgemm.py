@@ -5,10 +5,10 @@ import pytest
 import scipy.sparse as sp
 
 from conftest import random_sparse
-from pem_spgemm_tpu.config import SpGEMMConfig
-from pem_spgemm_tpu.formats.coo import COOMatrix
-from pem_spgemm_tpu.ops.convert import coo_to_tiled
-from pem_spgemm_tpu.ops.spgemm import SpGEMM
+from pem_spgemm.config import SpGEMMConfig
+from pem_spgemm.formats.coo import COOMatrix
+from pem_spgemm.ops.convert import coo_to_tiled
+from pem_spgemm.ops.spgemm import SpGEMM
 
 CFG = SpGEMMConfig(numeric_chunk=1 << 10)
 
@@ -106,11 +106,11 @@ def test_element_engine():
 
 
 def test_auto_dispatch():
-    from pem_spgemm_tpu.ops.spgemm import SpGEMM
-    from pem_spgemm_tpu.formats.coo import COOMatrix
-    from pem_spgemm_tpu.ops.convert import coo_to_tiled
+    from pem_spgemm.ops.spgemm import SpGEMM
+    from pem_spgemm.formats.coo import COOMatrix
+    from pem_spgemm.ops.convert import coo_to_tiled
     eng = SpGEMM(CFG.with_(engine="auto"))
-    from pem_spgemm_tpu.models.synthetic import banded
+    from pem_spgemm.models.synthetic import banded
     sparse = random_sparse(700, 700, 0.002, seed=1)   # ~1 nnz/tile
     dense = random_sparse(100, 100, 0.3, seed=1)      # 1 macro tile, 3k nnz
     mid = banded(n=2000, bands=(0, 1, -1), seed=1)    # fill16 ~24, fill_m<512
