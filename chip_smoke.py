@@ -288,6 +288,7 @@ class Phase:
     aat: bool = False
     count: str = "scipy"        # host C_nnz: "scipy" | "bands" | "wandering"
     via_cli: bool = False       # file path: .mtx on disk -> CLI -> dump
+    dia_kernel: bool = False    # on a GPU, ops/dia_kernel must compute C
 
 
 PHASES = (
@@ -298,7 +299,7 @@ PHASES = (
     Phase("dia:banded128-1M", "banded_device",
           dict(n=1_000_000, seed=1, bands=tuple(range(-64, 64))),
           dict(n=3000, seed=1, bands=tuple(range(-64, 64))),
-          expect="dia", count="bands"),
+          expect="dia", count="bands", dia_kernel=True),
     Phase("dia:pairbands-500k", "banded_device",
           dict(n=500_000, seed=9, bands=PAIRBANDS),
           dict(n=4000, seed=9, bands=PAIRBANDS),
@@ -363,6 +364,7 @@ def _run_cli(coo, tmp):
 
 def run_phase(phase: Phase, size: str = "full") -> dict:
     """Run one phase and check it; returns its JSON record."""
+    import jax
     from pem_spgemm.bench.harness import run_benchmark
     from pem_spgemm.config import SpGEMMConfig
     from pem_spgemm.models import synthetic
@@ -385,6 +387,7 @@ def run_phase(phase: Phase, size: str = "full") -> dict:
             got = (dumped.rows[keep], dumped.cols[keep], dumped.vals[keep])
             engine = phase.expect
             c_nnz = record.c_nnz
+            kernel = False
         else:
             cfg = SpGEMMConfig(engine=phase.engine, warmup=1, repeat=2,
                                fastest=True)
@@ -392,6 +395,7 @@ def run_phase(phase: Phase, size: str = "full") -> dict:
                                            aat=phase.aat, verbose=False)
             engine = result.engine
             c_nnz = result.c_nnz
+            kernel = result.dia_kernel
             rows = sample_rows(host.shape[0])
             got = result_rows(result, rows)
             del result
@@ -401,11 +405,14 @@ def run_phase(phase: Phase, size: str = "full") -> dict:
     want_nnz = host_c_nnz(phase, params, host, b_host)
     struct_ok, err_ratio, loose = check_rows(rows, *got, host, b_host)
     t_check = time.perf_counter() - t2
+    want_kernel = phase.dia_kernel and jax.devices()[0].platform == "gpu"
     ok = (struct_ok and err_ratio <= 1.0 and c_nnz == want_nnz
           and record.c_nnz == want_nnz
-          and (not phase.expect or engine == phase.expect))
+          and (not phase.expect or engine == phase.expect)
+          and kernel == want_kernel)
     return {
         "phase": phase.name, "ok": bool(ok), "engine": engine,
+        "dia_kernel": bool(kernel),
         "shape": list(host.shape), "nnz_a": host.nnz, "flop": record.flop,
         "c_nnz": int(c_nnz), "c_nnz_host": int(want_nnz),
         "rows_checked": int(len(rows)), "rows_structure_ok": struct_ok,

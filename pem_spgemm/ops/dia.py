@@ -20,7 +20,8 @@ Two execution paths, chosen by the plan:
   * GPU kernel (ops/dia_kernel.py): each program keeps a block of C in
     registers and loops over the A bands; traffic ~ operands + C once.
     For wide-band stencils (dense offset ranges) where products >> C
-    size; chosen by use_dia_kernel() from the platform and the offsets.
+    size; chosen by use_dia_kernel() from the platform, the offsets and
+    the dtype (float32 only).
 
 Structural dispatch (the analog of the reference's NSPARSE dispatch at
 spgemm.cu:1142): detect_dia() censuses distinct diagonals on device; the
@@ -263,13 +264,16 @@ def _count_nnz(cnt):
                    if jax.config.jax_enable_x64 else jnp.int32)
 
 
-def use_dia_kernel(offs_a, offs_b, platform: str) -> bool:
+def use_dia_kernel(offs_a, offs_b, dtype, platform: str) -> bool:
     """The GPU kernel (ops/dia_kernel.py) takes the regime where the XLA
     path scatter-adds into C once per A band (more than _STACK_MAX_TERMS
-    band pairs), when both offset sets are dense ranges; it beat the XLA
-    path end to end on banded64-1M and banded128-1M (PERF.md)."""
+    band pairs), when both offset sets are dense ranges and the bands are
+    float32 (the kernel computes in float32 only; other dtypes keep the
+    XLA path's own precision); it beat the XLA path end to end on
+    banded64-1M and banded128-1M (PERF.md)."""
     from pem_spgemm.ops.dia_kernel import is_range
-    return (platform == "gpu" and is_range(offs_a) and is_range(offs_b)
+    return (platform == "gpu" and np.dtype(dtype) == np.float32
+            and is_range(offs_a) and is_range(offs_b)
             and len(offs_a) * len(offs_b) > _STACK_MAX_TERMS)
 
 
@@ -277,9 +281,10 @@ def make_dia_plan(a: DiaMatrix, b: DiaMatrix) -> DiaPlan:
     """Build the static plan (host; the step-1 analog — a pure offset-set
     computation, microseconds)."""
     dc_list, idx_map = _plan_maps(a.offsets, b.offsets)
+    dtype = np.result_type(a.bands.dtype, b.bands.dtype)
     return DiaPlan(offs_a=a.offsets, offs_b=b.offsets, dc_list=dc_list,
                    idx_map=idx_map, n_out=a.shape[0],
-                   kernel=use_dia_kernel(a.offsets, b.offsets,
+                   kernel=use_dia_kernel(a.offsets, b.offsets, dtype,
                                          jax.devices()[0].platform))
 
 

@@ -75,16 +75,19 @@ def _kernel(a_ref, b_ref, *out_refs, d1, d2, rows, cols, with_counts):
 
 @functools.partial(jax.jit, static_argnames=(
     "offs_a", "offs_b", "n_out", "values_only", "rows", "cols",
-    "num_warps", "num_stages", "interpret"))
+    "interpret"))
 def dia_multiply_kernel(a_bands, b_bands, *, offs_a, offs_b, n_out,
                         values_only=False, rows=BLOCK_ROWS,
-                        cols=BLOCK_COLS, num_warps=NUM_WARPS,
-                        num_stages=NUM_STAGES, interpret=False):
+                        cols=BLOCK_COLS, interpret=False):
     """(c_bands, c_counts) over the dense C offset range
     [min(offs_a) + min(offs_b), max(offs_a) + max(offs_b)], the same
     contract as ops/dia._dia_multiply_xla; c_counts is None with
-    values_only=True."""
+    values_only=True.  float32 bands only: the kernel accumulates in
+    float32.  `rows` x `cols` is the C block per program (smaller blocks
+    keep interpret-mode tests fast)."""
     assert is_range(offs_a) and is_range(offs_b), (offs_a, offs_b)
+    assert a_bands.dtype == b_bands.dtype == jnp.float32, (
+        a_bands.dtype, b_bands.dtype)
     d1, n_i = a_bands.shape
     d2, n_k = b_bands.shape
     dc = d1 + d2 - 1
@@ -96,9 +99,8 @@ def dia_multiply_kernel(a_bands, b_bands, *, offs_a, offs_b, n_out,
     pad_l = max(0, -a0)
     start = a0 + pad_l
     width = n_pad + d1 - 1
-    ap = jnp.pad(a_bands.astype(jnp.float32),
-                 ((0, 0), (0, max(0, n_pad - n_i))))[:, :n_pad]
-    bp = jnp.pad(b_bands.astype(jnp.float32),
+    ap = jnp.pad(a_bands, ((0, 0), (0, max(0, n_pad - n_i))))[:, :n_pad]
+    bp = jnp.pad(b_bands,
                  ((rows, rows),
                   (pad_l, max(0, start + width - pad_l - n_k))))
     bp = bp[:, start:start + width]
@@ -114,13 +116,13 @@ def dia_multiply_kernel(a_bands, b_bands, *, offs_a, offs_b, n_out,
                         for _ in range(n_outs)),
         out_shape=tuple(jax.ShapeDtypeStruct((dc_pad, n_pad), jnp.float32)
                         for _ in range(n_outs)),
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
-                                             num_stages=num_stages),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         backend="triton",
         interpret=interpret,
         name="dia_stencil",
     )(ap, bp)
-    c = out[0][:dc, :n_out].astype(a_bands.dtype)
+    c = out[0][:dc, :n_out]
     if values_only:
         return c, None
     return c, out[1][:dc, :n_out]

@@ -62,8 +62,10 @@ class SpGEMMResult:
     # macro form (engine == "macro"): dense 128x128 C tiles + counts
     c_counts: Optional[jax.Array] = None     # (c_cap, 128, 128) f32
     # dia form (engine == "dia"): vals = (dc, n) C band stack, c_counts =
-    # (dc, n) structural counts, dia_dc = the static C diagonal offsets
+    # (dc, n) structural counts, dia_dc = the static C diagonal offsets,
+    # dia_kernel = whether ops/dia_kernel (not the XLA path) computed them
     dia_dc: Optional[tuple] = None
+    dia_kernel: bool = False
 
     def to_coo(self) -> COOMatrix:
         """Assemble + sort to canonical global COO (host)."""
@@ -302,7 +304,7 @@ class SpGEMM:
         return SpGEMMResult(
             vals=out[0], shape=(a.shape[0], b.shape[1]), c_nnz=c_nnz,
             n_pairs=len(plan.offs_a) * len(plan.offs_b), engine="dia",
-            c_counts=out[1], dia_dc=plan.dc_list)
+            c_counts=out[1], dia_dc=plan.dc_list, dia_kernel=plan.kernel)
 
     def _element(self, a: TiledMatrix, b: TiledMatrix,
                  timers: PhaseTimers) -> SpGEMMResult:

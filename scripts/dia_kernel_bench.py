@@ -3,10 +3,10 @@
     python scripts/dia_kernel_bench.py kernel    # compile + check + time
     python scripts/dia_kernel_bench.py e2e       # run_benchmark, both paths
 
-`kernel` compiles the kernel at banded64-1M and banded128-1M widths for
-each block configuration, checks it against ops/dia._dia_multiply_xla
-(values within 1e-5 relative to |A|.|B|, counts equal) and times both
-(values-only and with counts; min of 5 after a warm run).  `e2e` runs
+`kernel` compiles the kernel at banded64-1M and banded128-1M widths,
+checks it against ops/dia._dia_multiply_xla (values within 1e-5 relative
+to |A|.|B|, counts equal) and times both (values-only and with counts;
+min of 5 after a warm run).  `e2e` runs
 bench/harness.run_benchmark on both matrices with the XLA path and with
 the kernel, in the order XLA, kernel, kernel, XLA.  One JSON line per
 measurement.
@@ -21,8 +21,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 MATRICES = [("banded64-1M", tuple(range(-32, 32))),
             ("banded128-1M", tuple(range(-64, 64)))]
-CONFIGS = [(32, 256, 8, 2), (32, 128, 4, 2), (16, 256, 4, 2),
-           (64, 128, 8, 2), (32, 256, 8, 3), (32, 512, 8, 2)]
 
 
 def _best(fn, reps=5):
@@ -55,30 +53,23 @@ def kernel_mode(n=1_000_000):
                                                values_only=True, **kw))
         print(json.dumps(dict(matrix=name, path="xla", counts_s=t_x,
                               values_s=t_xv)), flush=True)
-        for rows, cols, warps, stages in CONFIGS:
-            kk = dict(offs_a=a.offsets, offs_b=a.offsets, n_out=a.shape[0],
-                      rows=rows, cols=cols, num_warps=warps,
-                      num_stages=stages)
-            rec = dict(matrix=name, path="kernel", rows=rows, cols=cols,
-                       num_warps=warps, num_stages=stages)
-            try:
-                t0 = time.perf_counter()
-                ck, nk = dia_multiply_kernel(a.bands, a.bands, **kk)
-                np_ck = np.asarray(ck)
-                rec["first_s"] = time.perf_counter() - t0
-                err = np.abs(np_ck - np.asarray(cx))
-                rec["max_err_over_bound"] = float(
-                    (err / (1e-5 * np.asarray(mag) + 1e-30)).max())
-                rec["counts_equal"] = bool(np.array_equal(
-                    np.asarray(nk), np.asarray(nx)))
-                rec["counts_s"] = _best(
-                    lambda: dia_multiply_kernel(a.bands, a.bands, **kk))
-                rec["values_s"] = _best(
-                    lambda: dia_multiply_kernel(a.bands, a.bands,
-                                                values_only=True, **kk))
-            except Exception as e:          # report and go on
-                rec["error"] = repr(e)[:2000]
-            print(json.dumps(rec), flush=True)
+        kk = dict(offs_a=a.offsets, offs_b=a.offsets, n_out=a.shape[0])
+        rec = dict(matrix=name, path="kernel")
+        t0 = time.perf_counter()
+        ck, nk = dia_multiply_kernel(a.bands, a.bands, **kk)
+        np_ck = np.asarray(ck)
+        rec["first_s"] = time.perf_counter() - t0
+        err = np.abs(np_ck - np.asarray(cx))
+        rec["max_err_over_bound"] = float(
+            (err / (1e-5 * np.asarray(mag) + 1e-30)).max())
+        rec["counts_equal"] = bool(np.array_equal(
+            np.asarray(nk), np.asarray(nx)))
+        rec["counts_s"] = _best(
+            lambda: dia_multiply_kernel(a.bands, a.bands, **kk))
+        rec["values_s"] = _best(
+            lambda: dia_multiply_kernel(a.bands, a.bands,
+                                        values_only=True, **kk))
+        print(json.dumps(rec), flush=True)
 
 
 def e2e_mode(n=1_000_000):
@@ -101,7 +92,7 @@ def e2e_mode(n=1_000_000):
                 continue
             print(json.dumps(dict(
                 matrix=name, path=path,
-                kernel_used=bool(dia.use_dia_kernel(bands, bands, "gpu")),
+                kernel_used=res.dia_kernel,
                 c_nnz=rec.c_nnz, interactive_ms=rec.pem_spgemm_time,
                 steady_ms=rec.steady_state_time,
                 pipelined_ms=rec.pipelined_time,

@@ -108,6 +108,7 @@ def test_phase_tiny(name):
     phase = next(p for p in cs.PHASES if p.name == name)
     rec = cs.run_phase(phase, "tiny")
     assert rec["ok"], rec
+    assert rec["dia_kernel"] is False            # the XLA path on the CPU
     assert rec["c_nnz"] == rec["c_nnz_host"]
     assert rec["rows_checked"] >= min(cs.SAMPLE_ROWS,
                                       rec["shape"][0])

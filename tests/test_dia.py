@@ -264,24 +264,57 @@ def test_dia_kernel_interpret_matches_xla(offs_a, offs_b, n):
     np.testing.assert_array_equal(np.asarray(cv), np.asarray(ck))
 
 
-@pytest.mark.parametrize("offs_a,offs_b,platform,want", [
-    (tuple(range(-32, 32)), tuple(range(-32, 32)), "gpu", True),
-    (tuple(range(-64, 64)), tuple(range(-64, 64)), "gpu", True),
-    (tuple(range(-64, 64)), tuple(range(-64, 64)), "cpu", False),
-    (tuple(range(-8, 8)), tuple(range(-8, 8)), "gpu", False),   # few pairs
+@pytest.mark.parametrize("offs_a,offs_b,dtype,platform,want", [
+    (tuple(range(-32, 32)), tuple(range(-32, 32)), np.float32, "gpu", True),
+    (tuple(range(-64, 64)), tuple(range(-64, 64)), np.float32, "gpu", True),
+    (tuple(range(-64, 64)), tuple(range(-64, 64)), np.float32, "cpu",
+     False),
+    (tuple(range(-8, 8)), tuple(range(-8, 8)), np.float32, "gpu",
+     False),                                                    # few pairs
     ((0, 1, 600, 601, -600, -601, 1200, 1201, -1200, -1201),) * 2
-    + ("gpu", False),                                           # gapped
-    (tuple(range(-64, 64, 2)), tuple(range(-64, 64)), "gpu", False),
+    + (np.float32, "gpu", False),                               # gapped
+    (tuple(range(-64, 64, 2)), tuple(range(-64, 64)), np.float32, "gpu",
+     False),
+    (tuple(range(-64, 64)), tuple(range(-64, 64)), np.float64, "gpu",
+     False),                                    # the kernel is f32 only
+    (tuple(range(-64, 64)), tuple(range(-64, 64)), np.float16, "gpu",
+     False),
 ])
-def test_dia_kernel_choice(offs_a, offs_b, platform, want):
+def test_dia_kernel_choice(offs_a, offs_b, dtype, platform, want):
     from pem_spgemm.ops.dia import use_dia_kernel
-    assert use_dia_kernel(offs_a, offs_b, platform) is want
+    assert use_dia_kernel(offs_a, offs_b, dtype, platform) is want
 
 
 def test_dia_plan_takes_xla_path_on_cpu():
     a = coo_to_dia(_banded_coo(400, tuple(range(-40, 40)), seed=3),
                    dtype=np.float32)
     assert not make_dia_plan(a, a).kernel
+
+
+@pytest.mark.parametrize("dtype,want", [(np.float32, True),
+                                        (np.float64, False)])
+def test_dia_plan_on_gpu_keeps_f64_on_xla_path(monkeypatch, dtype, want):
+    # a float64 range-64 product (f64 parity mode) must not be computed
+    # by the float32 kernel; the plan reads only the bands' dtype, so host
+    # bands stand in for x64 device arrays
+    import dataclasses
+    import types
+    from pem_spgemm.ops import dia
+    a = coo_to_dia(_banded_coo(400, tuple(range(-32, 32)), seed=3),
+                   dtype=np.float32)
+    a = dataclasses.replace(a, bands=np.asarray(a.bands, dtype))
+    monkeypatch.setattr(dia.jax, "devices",
+                        lambda: [types.SimpleNamespace(platform="gpu")])
+    assert dia.make_dia_plan(a, a).kernel is want
+
+
+def test_dia_kernel_refuses_non_f32():
+    from pem_spgemm.ops.dia_kernel import dia_multiply_kernel
+    offs = tuple(range(-4, 4))
+    bands = np.ones((len(offs), 64), np.float16)
+    with pytest.raises(AssertionError):
+        dia_multiply_kernel(bands, bands, offs_a=offs, offs_b=offs,
+                            n_out=64, interpret=True)
 
 
 @pytest.mark.gpu
